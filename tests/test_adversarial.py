@@ -10,11 +10,11 @@ scans stop retrying, with every intermediate count exact.
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_fast
-from tpu_smatcher.ops.fast import FP_MULTS, _fp_keys_np
+from smatcher.core.alphabet import Alphabet
+from smatcher.core.patterns import PatternSet
+from smatcher.core import datagen
+from smatcher.engines import make_fast
+from smatcher.ops.fast import FP_MULTS, _fp_keys_np
 
 FP_COLLISION_D = np.array([0, 1, 0, -3, 1, 2, -3, 2, 2, -3, 2, 1,
                            -3, 0, 1, 0], np.int64)
@@ -49,7 +49,7 @@ def test_collision_vector_is_total():
 def test_adversarial_adaptation_converges():
     text, pats = _planted()
     truth = int(datagen.count_matches(text, pats))
-    s = make_fast(pats, interpret=True, backend="pallas")
+    s = make_fast(pats, backend="triton", interpret=True)
     tdev = jnp.asarray(text)
     counts = [s.count(tdev) for _ in range(7)]
     assert counts == [truth] * 7          # exact on EVERY scan
@@ -62,7 +62,7 @@ def test_adversarial_adaptation_converges():
 
 def test_adversarial_positions_and_attr_exact():
     text, pats = _planted(n=1 << 15, n_pat=60)
-    s = make_fast(pats, interpret=True, backend="pallas")
+    s = make_fast(pats, backend="triton", interpret=True)
     tdev = jnp.asarray(text)
     pos = s.positions(tdev)
     want = np.nonzero(np.asarray(datagen.match_starts(text, pats)))[0]

@@ -10,9 +10,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine, make_fast
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_engine, make_fast
 
 
 @pytest.fixture(scope="module")
@@ -42,22 +42,21 @@ def test_scan_many_xla_fp(fp_case):
 
 def test_count_async_pallas_interpret_fp(fp_case):
     text, pats, truth = fp_case
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     assert eng.count_async(text).result() == truth
 
 
 def test_scan_many_exact_both_backends(exact_case):
     text, pats, truth = exact_case
-    assert make_fast(pats, backend="pallas",
+    assert make_fast(pats, backend="triton",
                      interpret=True).scan_many([text]) == [truth]
     assert make_fast(pats, backend="xla").scan_many([text]) == [truth]
 
 
 def test_engine_async_fastpath_and_fallback(exact_case):
     text, pats, truth = exact_case
-    assert make_engine("wm", pats, interpret=True).scan_many([text]) == [truth]
-    assert make_engine("ac", pats,
-                       fastpath=False).scan_many([text]) == [truth]
+    assert make_engine("wm", pats, backend="triton", interpret=True).scan_many([text]) == [truth]
+    assert make_engine("ac", pats).scan_many([text]) == [truth]
 
 
 def test_count_async_overflow_retries_to_exact(fp_case):
@@ -85,17 +84,17 @@ def test_count_file_pipelined(exact_case):
 
 def test_engine_count_file(exact_case):
     """Every engine streams files through the shared (m-1)-halo pipeline
-    (fastpath_count_file) — with and without an active fast path."""
+    (common.stream_count_file) on its device scanner."""
     text, pats, truth = exact_case
     with tempfile.NamedTemporaryFile(delete=False) as fh:
         fh.write(np.asarray(text).tobytes())
         path = fh.name
     try:
-        wm = make_engine("wm", pats, interpret=True, tile=1 << 12)
+        wm = make_engine("wm", pats, backend="triton", interpret=True, tile=1 << 12)
         assert wm.count_file(path, chunk=13_000) == truth
-        ac = make_engine("ac", pats, fastpath=False)
+        ac = make_engine("ac", pats)
         assert ac.count_file(path, chunk=13_000) == truth
-        sog = make_engine("sog8", pats, fastpath=False, tile=1 << 12)
+        sog = make_engine("sog8", pats, tile=1 << 12)
         assert sog.count_file(path, chunk=13_000, depth=1) == truth
     finally:
         os.unlink(path)
@@ -105,19 +104,18 @@ def test_async_retry_adds_filter_stages():
     """An FP-driven overflow retry must still return the exact count (via
     the sync ladder) and bump the scanner's extra-stage count — bounded —
     so an adversarial pattern set converges to a harder filter instead of
-    retrying every scan.  The corpus here is match-SPARSE (mean matches per
-    16K block far below the slot budget) so the bump branch, not the
-    match-dense switch, is exercised."""
+    retrying every scan.  The corpus here is match-SPARSE (matches far
+    below cap/4) so the bump branch is exercised."""
     ab = Alphabet.of_size(20)
     text = datagen.generate_text(300_000, ab, seed=15)
     pats = datagen.generate_patterns(text, 80, 12, ab, frac_present=0.2,
                                      seed=16)
     truth = datagen.count_matches(text, pats)
     assert truth * 16384 / (len(text) - 11) <= 8     # sparse premise
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     assert eng._k_extra == 0
     assert eng._async_retry(text) == truth        # exact count via ladder
-    assert eng._k_extra == 1 and not eng._match_dense
+    assert eng._k_extra == 1
     assert eng.count_async(text).result() == truth  # retraced, still exact
     for _ in range(6):
         eng._async_retry(text)
@@ -126,18 +124,16 @@ def test_async_retry_adds_filter_stages():
 
 
 def test_async_retry_match_dense_switch(fp_case):
-    """A MATCH-driven overflow (true matches alone crowd the per-block
-    slots) must NOT bump the stage count — stages cannot reject matches;
-    each useless bump forces a full retrace — but switch the scanner's
-    async path to the dense mask-pipeline pass, which then counts exactly
-    in one dispatch with no further retries."""
+    """A MATCH-driven overflow (true matches alone exceed cap/4) must NOT
+    bump the stage count — stages cannot reject matches; each useless bump
+    forces a full retrace — and later scans keep counting exactly."""
     text, pats, truth = fp_case
-    # fp_case is match-dense at 16K-block granularity by construction
-    assert truth * 16384 / (len(text) - pats.m + 1) > 8
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    cap = 64
+    assert truth > cap // 4                       # match-dense vs the cap
+    eng = make_fast(pats, backend="triton", interpret=True, cap=cap)
     assert eng._async_retry(text) == truth
-    assert eng._match_dense and eng._k_extra == 0
-    f = eng.count_async(text)                     # dense pass, one dispatch
+    assert eng._k_extra == 0
+    f = eng.count_async(text)
     assert f.result() == truth
     assert eng.count_async(text).result() == truth
 
@@ -148,20 +144,18 @@ def test_chunked_verify_matches_full_verify():
     cond chunk (n_cand > cap/VERIFY_CHUNKS), where the gated chunks must
     actually execute."""
     import jax.numpy as jnp
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher.core import datagen
-    from tpu_smatcher.ops.fast import verify_at, verify_chunked, words_len
-    from tpu_smatcher.ops.pallas_filter import words_view_pallas
+    from smatcher.core.alphabet import Alphabet
+    from smatcher.core import datagen
+    from smatcher.ops.fast import verify_at, verify_chunked
     ab = Alphabet(4)
     text = datagen.generate_text(50_000, ab, seed=3)
     pats = datagen.generate_patterns(text, 400, 16, ab, frac_present=0.8,
                                      seed=4)
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     ft = eng.ft
     n = len(text)
     n_starts = n - ft.m + 1
-    tw = words_view_pallas(jnp.asarray(text), nw=words_len(n, ft.words),
-                           interpret=True)
+    tw = jnp.asarray(text)
     cap = 1024                       # 256-candidate chunks
     for n_fill in (0, 100, 300, 900, 1024):   # spans 1..4 live chunks
         idxs = np.full(cap, -1, np.int32)
@@ -177,24 +171,21 @@ def test_chunked_verify_matches_full_verify():
 
 
 def test_engine_async_match_dense_adapts():
-    """An engine's fused async path on a match-dense corpus: the first
-    overflow retries exactly and pins later async scans to the fallback
-    FastScanner's adaptive (dense) path — no per-scan sync ladder."""
-    from tpu_smatcher.core.patterns import PatternSet
-    from tpu_smatcher.engines import make_engine
-    from tpu_smatcher.ops.common import active_fastpath
+    """An engine's async path on a match-dense corpus: every scan that
+    overflows the device cap retries to the exact count, and the
+    repeat-scan primitive runs on the same device scanner."""
+    from smatcher.engines import make_engine
+    from smatcher.ops.common import engine_scanner
     ab = Alphabet.dna()
     text = datagen.generate_text(120_000, ab, seed=61)
     pats = datagen.generate_patterns(text, 32, 12, ab, frac_present=0.5,
                                      seed=62)
     text = datagen.plant(text, pats.codes[0], list(range(0, 119_000, 150)))
     truth = datagen.count_matches(text, pats)
-    eng = make_engine("wm", pats, interpret=True)
-    fp = active_fastpath(eng)
-    fp.cap = 1024                      # force the fused path to overflow
-    fp._fallback = None                # rebuild fallback at the small cap
-    import dataclasses
+    eng = make_engine("wm", pats, backend="triton", interpret=True,
+                      cap=256)         # force the device scan to overflow
+    fs = engine_scanner(eng)
     assert eng.count_async(text).result() == truth      # first: retries
-    assert getattr(fp, "_use_fallback_async", False)
-    assert eng.count_async(text).result() == truth      # steady: fallback
-    assert fp.count_repeat_async(text, 2).result() == 2 * truth
+    assert fs._retries == 1 and fs._k_extra == 0        # match-driven
+    assert eng.count_async(text).result() == truth
+    assert fs.count_repeat_async(text, 2).result() == truth

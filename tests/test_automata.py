@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.automata import (
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.automata import (
     build_ac, build_sh, build_sbom, build_wm, build_sog, build_verify,
 )
-from tpu_smatcher.automata.ac import multi_step_tables
-from tpu_smatcher.ops import numpy_ref as nref
-from tpu_smatcher.oracles.reference import oracle_ac
+from smatcher.automata.ac import multi_step_tables
+from smatcher.ops import numpy_ref as nref
+from smatcher.oracles.reference import oracle_ac
 
 
 def make_case(sigma, m, p_size, n, seed, frac_present=0.6):

@@ -5,12 +5,12 @@ import dataclasses
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.checkpoint import save_tables, load_tables
-from tpu_smatcher.automata import (
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.core.checkpoint import save_tables, load_tables
+from smatcher.automata import (
     build_ac, build_sh, build_sbom, build_wm, build_sog, build_verify)
-from tpu_smatcher.ops.fast import build_fast, FastScanner
+from smatcher.ops.fast import build_fast, FastScanner
 
 
 @pytest.fixture(scope="module")

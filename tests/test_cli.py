@@ -6,9 +6,9 @@ import json
 import numpy as np
 import pytest
 
-from tpu_smatcher import cli
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
+from smatcher import cli
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
 
 
 @pytest.fixture(scope="module")

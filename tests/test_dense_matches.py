@@ -1,16 +1,16 @@
 """Dense-match corpora on the fingerprint tier: counts must be total
 functions of the input — when candidates exceed every cap trial, the fast
-path scans in budget-sized pieces with the row-dense device pass, and
-engines fall back to their capless jnp scan.  The reference counts millions
+path scans in budget-sized pieces, and engine counts run their capless
+jnp scans.  The reference counts millions
 of matches per corpus (main.c:656); density must never be an error."""
 
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine, make_fast
+from smatcher.core.alphabet import Alphabet
+from smatcher.core.patterns import PatternSet
+from smatcher.core import datagen
+from smatcher.engines import make_engine, make_fast
 
 
 @pytest.fixture(scope="module")
@@ -30,15 +30,14 @@ def test_fast_xla_dense(dense_case):
 
 def test_fast_pallas_dense(dense_case):
     text, pats, truth = dense_case
-    eng = make_fast(pats, backend="pallas", interpret=True, cap=1024)
+    eng = make_fast(pats, backend="triton", interpret=True, cap=1024)
     assert eng.count(text) == truth
 
 
 def test_engine_falls_back_to_jnp(dense_case):
     text, pats, truth = dense_case
-    eng = make_engine("wm", pats, interpret=True, tile=1 << 12)
-    eng.fast_path.cap = 1024
-    eng.fast_path.caprows = 1024
+    eng = make_engine("wm", pats, backend="triton", interpret=True,
+                      tile=1 << 12, cap=1024)
     assert eng.count(text) == truth
     assert eng.count_async(text).result() == truth
 
@@ -50,5 +49,5 @@ def test_mixed_density(dense_case):
                             datagen.generate_text(20_000, ab, seed=3)])
     truth = datagen.count_matches(text2, pats)
     assert make_fast(pats, backend="xla", cap=1024).count(text2) == truth
-    assert make_fast(pats, backend="pallas", interpret=True,
+    assert make_fast(pats, backend="triton", interpret=True,
                      cap=1024).count(text2) == truth

@@ -1,17 +1,17 @@
 """Very large pattern sets on the fp tier: when even all built derived
 stages cannot meet the candidate budget (the 16-bit fingerprint space
 saturates around p ~ 100k — the reference caps p at texture-memory scale,
-main.c:372-373), the Pallas path scans in (m-1)-halo pieces sized to the
-budget instead of raising."""
+main.c:372-373), the scanner overflows the candidate cap and scans in
+(m-1)-halo pieces sized to the budget instead of raising."""
 
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_fast
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_fast
 
 
 def test_budget_shortfall_chunks_and_counts_exactly():
@@ -20,12 +20,11 @@ def test_budget_shortfall_chunks_and_counts_exactly():
     pats = datagen.generate_patterns(text, 300, 16, ab, frac_present=0.5,
                                      seed=22)
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats, backend="pallas", interpret=True, cap=8192)
+    eng = make_fast(pats, backend="triton", interpret=True, cap=8192)
     # simulate stage saturation by truncating the built stages
     eng.ft = dataclasses.replace(eng.ft, bitmaps=eng.ft.bitmaps[:2])
-    eng._jdevice = None
-    got, o = eng._count_pallas(jnp.asarray(text, jnp.uint8))
-    assert (got, o) == (truth, False)
+    got, o = eng.count_with_overflow(jnp.asarray(text, jnp.uint8))
+    assert o or got == truth                   # raw flag: never silent
     assert eng.count(text) == truth
 
 
@@ -40,11 +39,10 @@ def test_saturated_filter_terminates():
     pats = datagen.generate_patterns(text, 3_000, 12, ab, frac_present=0.3,
                                      seed=26)
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats, backend="pallas", interpret=True, cap=4096)
+    eng = make_fast(pats, backend="triton", interpret=True, cap=4096)
     # force saturation: keep only one stage and pin its density near 1
     eng.ft = dataclasses.replace(eng.ft, bitmaps=eng.ft.bitmaps[:1],
                                  density=0.95)
-    eng._jdevice = None
     assert eng.count(text) == truth
     assert eng.count_async(jnp.asarray(text, jnp.uint8)).result() == truth
 

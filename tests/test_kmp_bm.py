@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from tpu_smatcher.automata.kmp import pre_kmp, kmp_count
-from tpu_smatcher.automata.bm import pre_bm_bc
-from tpu_smatcher.automata import build_sh
+from smatcher.automata.kmp import pre_kmp, kmp_count
+from smatcher.automata.bm import pre_bm_bc
+from smatcher.automata import build_sh
 
 
 def _border(p, i):
@@ -79,8 +79,8 @@ def test_sh_tables_carry_bm_bc():
 
 
 def test_pattern_set_from_fasta(tmp_path):
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.alphabet import Alphabet
+    from smatcher.core.patterns import PatternSet
     fa = tmp_path / "p.fa"
     fa.write_bytes(b">a\nACGT\nACGT\n>b\nTTTTACGT\n>c desc\nacgtacgt\n")
     ps = PatternSet.from_fasta(str(fa), Alphabet.dna())

@@ -1,15 +1,14 @@
-"""m > 129 on the Pallas fast path (multi-view overlapped rows + part-wise
-MXU weights).  The reference kernels take any m (cuda/cuda_wm.cu:67-70);
-round 1 fell back to the XLA path past m=129 — the fast path now covers
-m <= 4097 (E-row edge references, pallas_filter.edge_rows_for) and longer
-patterns still fall back transparently."""
+"""Long patterns on the fast path.  The reference kernels take any m
+(cuda/cuda_wm.cu:67-70); the Triton kernel's fingerprint loop runs as a
+fori_loop past m = 64, and verification gathers the m window bytes of each
+candidate, so no length limit applies."""
 
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine, make_fast
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_engine, make_fast
 
 
 @pytest.mark.parametrize("m", [150, 512, 1024, 2048])
@@ -19,7 +18,7 @@ def test_long_pattern_fast_path_parity(m):
     pats = datagen.generate_patterns(text, 20, m, ab, frac_present=0.5,
                                      seed=m)
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     assert eng.count(text) == truth
     oracle = np.nonzero(np.asarray(datagen.match_starts(text, pats)))[0]
     np.testing.assert_array_equal(eng.positions(text), oracle)
@@ -31,44 +30,42 @@ def test_long_pattern_engine_fast_path():
     pats = datagen.generate_patterns(text, 15, 200, ab, frac_present=0.5,
                                      seed=13)
     truth = datagen.count_matches(text, pats)
-    assert make_engine("wm", pats, interpret=True).count(text) == truth
+    assert make_engine("wm", pats, backend="triton", interpret=True).count(text) == truth
 
 
 def test_beyond_max_falls_back():
-    from tpu_smatcher.ops.pallas_filter import max_fast_m
+    """m = 4104 — past any fixed layout — through count, the distribution
+    core and a 2-device mesh."""
     ab = Alphabet.of_size(20)
-    m = max_fast_m() + 7
+    m = 4104
     # text sized off the cap: the 2-device mesh below needs per-shard
     # length >= m-1 for the one-hop halo
     text = datagen.generate_text(3 * m, ab, seed=14)
     pats = datagen.generate_patterns(text, 8, m, ab, frac_present=0.5,
                                      seed=15)
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats, backend="pallas", interpret=True)
-    assert eng.count(text) == truth            # transparently XLA
+    eng = make_fast(pats, backend="triton", interpret=True)
+    assert eng.count(text) == truth
 
-    # the distribution core must take the same fallback (regression: it
-    # raised ValueError from overlap_rows instead)
+    # the distribution core takes the same scan
     import jax
     import jax.numpy as jnp
     c, o = jax.jit(eng.core)(jnp.asarray(text, jnp.uint8))
     assert (int(c), int(o)) == (truth, 0)
 
-    from tpu_smatcher.parallel import make_mesh
-    from tpu_smatcher.parallel.dist import DistributedCounter
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedCounter
     dc = DistributedCounter(eng.core, make_mesh(2), m=m, sigma=pats.sigma)
     assert dc.count(text) == truth
 
 
 @pytest.mark.parametrize("m", [257, 513])
 def test_long_pattern_max_byte_fp_accumulation(m):
-    """Regression: the flat kernel's base fingerprints summed their
-    per-view f32 matmuls in f32; three or more views of near-max bytes
-    (sigma=256) exceed 2^24 and round at ulp=2, corrupting keys mod 2^16
-    and silently REJECTING true matches (the one invariant a filter must
-    never break).  Cross-view accumulation is now int32
-    (pallas_filter._fp_keys_views)."""
-    from tpu_smatcher.core.patterns import PatternSet
+    """Near-max bytes (sigma=256) over long windows: fingerprint sums must
+    stay exact integers mod 2^16 (any rounding would silently REJECT true
+    matches, the one invariant a filter must never break).  The kernel
+    accumulates in int32."""
+    from smatcher.core.patterns import PatternSet
     ab = Alphabet(256)
     rng = np.random.default_rng(5)
     n = 1 << 14
@@ -77,6 +74,6 @@ def test_long_pattern_max_byte_fp_accumulation(m):
     pats = PatternSet(np.stack([text[s:s + m] for s in starts]), ab)
     truth = datagen.count_matches(text, pats)
     assert truth >= 64                       # every planted window matches
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     assert eng.count(text) == truth
     assert len(eng.positions(text)) == truth

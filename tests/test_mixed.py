@@ -10,10 +10,10 @@ running the reference once per length group.
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.patterns import MixedPatternSet, PatternSet
-from tpu_smatcher.engines import make_mixed
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.core.patterns import MixedPatternSet, PatternSet
+from smatcher.engines import make_mixed
 
 
 def _mixed_set(text, lengths, per_len, ab, seed=0):
@@ -105,7 +105,7 @@ def test_mixed_engine_family():
     ab = Alphabet.of_size(20)
     text = datagen.generate_text(20_000, ab, seed=51)
     mx, _ = _mixed_set(text, (5, 10), 10, ab, seed=52)
-    eng = make_mixed(mx, engine="wm", fastpath=False)
+    eng = make_mixed(mx, engine="wm")
     assert eng.count(text) == _oracle_count(text, mx)
 
 
@@ -120,7 +120,7 @@ def test_mixed_cli_fasta(tmp_path, capsys):
     """CLI: a mixed-length FASTA pattern file routes through MixedScanner,
     agrees with ground truth, and writes (start, length) positions."""
     import json
-    from tpu_smatcher import cli
+    from smatcher import cli
     ab = Alphabet.dna()
     text = datagen.generate_text(30_000, ab, seed=61)
     tpath = tmp_path / "corpus.bin"
@@ -175,7 +175,7 @@ def test_mixed_cli_algo_all_skips_sog(tmp_path, capsys):
     skips SOG with a note, cross-checks, and exits 0 (ADVICE r2: this
     used to crash mid-run with an unhandled ValueError)."""
     import json
-    from tpu_smatcher import cli
+    from smatcher import cli
     ab = Alphabet.dna()
     text = datagen.generate_text(20_000, ab, seed=71)
     tpath = tmp_path / "corpus.bin"
@@ -200,7 +200,7 @@ def test_mixed_cli_algo_all_skips_sog(tmp_path, capsys):
 def test_mixed_cli_explicit_sog_clear_exit(tmp_path):
     """Explicit --algo sog8 on a mixed set exits with a clear message
     instead of an unhandled ValueError (ADVICE r2)."""
-    from tpu_smatcher import cli
+    from smatcher import cli
     ab = Alphabet.dna()
     text = datagen.generate_text(5_000, ab, seed=73)
     tpath = tmp_path / "corpus.bin"

@@ -6,12 +6,12 @@ import pytest
 
 import jax
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_fast
-from tpu_smatcher.parallel import make_mesh
-from tpu_smatcher.parallel.dist import DistributedCounter
-from tpu_smatcher.parallel.multihost import load_corpus_shards, host_shard_ranges
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_fast
+from smatcher.parallel import make_mesh
+from smatcher.parallel.dist import DistributedCounter
+from smatcher.parallel.multihost import load_corpus_shards, host_shard_ranges
 
 
 @pytest.fixture(scope="module")

@@ -14,8 +14,8 @@ import sys
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
 
 M = 9
 SEED = 77

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher import native
-from tpu_smatcher.automata import build_ac, build_sh, build_sbom
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher import native
+from smatcher.automata import build_ac, build_sh, build_sbom
 
 pytestmark = pytest.mark.skipif(native.load() is None,
                                 reason="native library unavailable")
@@ -68,9 +68,9 @@ def test_native_rejects_out_of_range():
 
 def test_native_fasta_encoder_matches_python(tmp_path):
     import numpy as np
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher.core import corpus
-    from tpu_smatcher import native as nat
+    from smatcher.core.alphabet import Alphabet
+    from smatcher.core import corpus
+    from smatcher import native as nat
 
     fasta = (b">chr1 test header\n"
              b"ACGTacgtNNRY\n"
@@ -94,9 +94,9 @@ def test_native_fasta_encoder_matches_python(tmp_path):
 
 def test_native_cpu_count_matches_numpy():
     import numpy as np
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher.core import datagen
-    from tpu_smatcher import native as nat
+    from smatcher.core.alphabet import Alphabet
+    from smatcher.core import datagen
+    from smatcher import native as nat
     rng = np.random.default_rng(3)
     for sigma, m, p, n in [(4, 8, 50, 40_000), (20, 32, 40, 30_000),
                            (2, 16, 30, 20_000), (256, 12, 25, 20_000),
@@ -122,7 +122,7 @@ def test_native_cpu_count_matches_numpy():
 def test_native_sbom_rejects_out_of_range_bytes():
     import numpy as np
     import pytest
-    from tpu_smatcher import native as nat
+    from smatcher import native as nat
     if nat.load() is None:
         pytest.skip("native library unavailable")
     bad = np.array([[200, 1, 2, 3]], np.uint8)
@@ -133,8 +133,8 @@ def test_native_sbom_rejects_out_of_range_bytes():
 def test_native_wm_tables_match_python():
     import numpy as np
     import pytest
-    from tpu_smatcher import native as nat
-    from tpu_smatcher.automata.wu import build_wm
+    from smatcher import native as nat
+    from smatcher.automata.wu import build_wm
     if nat.load() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(17)
@@ -152,8 +152,8 @@ def test_native_wm_tables_match_python():
 def test_native_sog_tables_match_python():
     import numpy as np
     import pytest
-    from tpu_smatcher import native as nat
-    from tpu_smatcher.automata.sog import build_sog
+    from smatcher import native as nat
+    from smatcher.automata.sog import build_sog
     if nat.load() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(18)
@@ -165,10 +165,10 @@ def test_native_sog_tables_match_python():
 
 
 def test_native_match_enum_parity():
-    """tpu_match_enum == numpy attribution (positions sorted, smallest id
-    on byte-identical duplicates) — the off-TPU matches() path."""
-    from tpu_smatcher import native
-    from tpu_smatcher.core.datagen import match_ids
+    """sm_match_enum == numpy attribution (positions sorted, smallest id
+    on byte-identical duplicates) — the ground truth of matches()."""
+    from smatcher import native
+    from smatcher.core.datagen import match_ids
     if native.load() is None:
         pytest.skip("native toolchain unavailable")
     ab = Alphabet.dna()
@@ -185,17 +185,17 @@ def test_native_match_enum_parity():
 def test_scanner_matches_native_offtpu():
     """Engine matches() on a CPU backend (no active fast path) routes
     through the native enumerator and agrees with ground truth."""
-    from tpu_smatcher import native
-    from tpu_smatcher.engines import make_engine
+    from smatcher import native
+    from smatcher.engines import make_engine
     if native.load() is None:
         pytest.skip("native toolchain unavailable")
     ab = Alphabet.dna()
     text = datagen.generate_text(120_000, ab, seed=53)
     pats = datagen.generate_patterns(text, 64, 8, ab, frac_present=0.7,
                                      seed=54)
-    eng = make_engine("wm", pats, fastpath=False)    # pure jnp + native attr
+    eng = make_engine("wm", pats)    # pure jnp + native attr
     pos, ids = eng.matches(text)
     assert len(pos) == datagen.count_matches(text, pats)
-    from tpu_smatcher.core.datagen import match_ids
+    from smatcher.core.datagen import match_ids
     assert np.array_equal(np.asarray(ids),
                           match_ids(text, np.asarray(pos), pats.codes))

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.engines import make_engine
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.core.patterns import PatternSet
+from smatcher.engines import make_engine
 
 
 def make_case(sigma, m, p_size, n, seed, frac_present=0.6):

@@ -5,9 +5,9 @@ for correctness — equal counts across its CPU + 5 GPU implementations)."""
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.oracles.reference import (
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.oracles.reference import (
     oracle_ac, oracle_sh, oracle_sbom, oracle_wm,
     oracle_sog, ORACLES,
 )

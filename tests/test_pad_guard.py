@@ -15,12 +15,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine, make_fast
-from tpu_smatcher.parallel import make_mesh
-from tpu_smatcher.parallel.dist import DistributedCounter
+from smatcher.core.alphabet import Alphabet
+from smatcher.core.patterns import PatternSet
+from smatcher.core import datagen
+from smatcher.engines import make_engine, make_fast
+from smatcher.parallel import make_mesh
+from smatcher.parallel.dist import DistributedCounter
 
 
 def _aliasing_case():
@@ -44,22 +44,23 @@ def test_distributed_exact_fast_no_pad_alias():
 def test_distributed_exact_pallas_core_no_pad_alias():
     text, pats = _aliasing_case()
     mesh = make_mesh(2)
-    fast = make_fast(pats, backend="pallas", interpret=True)
+    fast = make_fast(pats, backend="triton", interpret=True)
     dc = DistributedCounter(fast.core, mesh, m=8, sigma=4)
     assert dc.count(text) == 0
 
 
 def test_distributed_engine_fastpath_no_pad_alias():
+    from smatcher.ops.common import engine_scanner
     text, pats = _aliasing_case()
     mesh = make_mesh(2)
-    eng = make_engine("ac", pats, interpret=True)
-    dc = DistributedCounter(eng.fast_path.core, mesh, m=8, sigma=4)
+    eng = make_engine("ac", pats, backend="triton", interpret=True)
+    dc = DistributedCounter(engine_scanner(eng).core, mesh, m=8, sigma=4)
     assert dc.count(text) == 0
 
 
 def test_single_device_pallas_count_no_pad_alias():
     text, pats = _aliasing_case()
-    fast = make_fast(pats, backend="pallas", interpret=True)
+    fast = make_fast(pats, backend="triton", interpret=True)
     assert fast.count(text) == 0
     assert fast.positions(text).size == 0
 
@@ -67,31 +68,28 @@ def test_single_device_pallas_count_no_pad_alias():
 def test_engine_positions_guard_out_of_alphabet_text():
     """Single-device EXACT-tier positions on text containing an
     out-of-alphabet byte: the aliased window must not be reported, and the
-    engine fast path must agree with FastScanner.positions (regression:
-    EngineFastPath.positions built its mask unguarded)."""
+    engine's device positions must agree with FastScanner.positions."""
     text, pats = _aliasing_case()
     text = text.copy()
     text[15] = 4                        # window [8:16] = [0]*7+[4]: aliases
-    fast = make_fast(pats, backend="pallas", interpret=True)
-    eng = make_engine("ac", pats, interpret=True)
+    fast = make_fast(pats, backend="triton", interpret=True)
+    eng = make_engine("ac", pats, backend="triton", interpret=True)
     np.testing.assert_array_equal(fast.positions(text), eng.positions(text))
     assert eng.positions(text).size == 0
 
 
 def test_engine_fastpath_count_total_on_dense_matches():
-    """EngineFastPath.count/scan_many stay TOTAL when matches alone exceed
-    every cap trial (regression: raised OverflowError instead of finishing
-    via budget pieces)."""
+    """Engine count/scan_many stay TOTAL when matches alone exceed the
+    device cap (the device scanner finishes via budget pieces)."""
     ab = Alphabet.of_size(20)
     m = 12                              # fp tier (20^12 >> 2^16)
     text = np.zeros(2_600, np.uint8)    # every start matches
     pats = PatternSet(np.zeros((1, m), np.uint8), ab)
     truth = len(text) - m + 1
-    eng = make_engine("wm", pats, interpret=True)
-    fp = eng.fast_path
-    fp.cap = 1024                       # far below the 2,589 matches
-    assert fp.count(text) == truth
-    assert fp.scan_many([text]) == [truth]
+    eng = make_engine("wm", pats, backend="triton", interpret=True,
+                      cap=1024)         # far below the 2,589 matches
+    assert eng.count(text) == truth
+    assert eng.scan_many([text]) == [truth]
 
 
 def test_exact_still_counts_real_matches_with_guard():
@@ -100,7 +98,7 @@ def test_exact_still_counts_real_matches_with_guard():
     pats = datagen.generate_patterns(text, 50, 8, ab, frac_present=0.6, seed=82)
     truth = datagen.count_matches(text, pats)
     mesh = make_mesh(4)
-    fast = make_fast(pats, backend="pallas", interpret=True)
+    fast = make_fast(pats, backend="triton", interpret=True)
     dc = DistributedCounter(fast.core, mesh, m=8, sigma=4)
     assert dc.count(text) == truth
 
@@ -118,16 +116,15 @@ def test_distributed_overflow_raises():
 
 
 def test_dense_matches_handled_by_row_slot_retry():
-    """Dense-match workloads (128 candidates per 128-lane row, far beyond
-    the 8-slot default) succeed via the automatic full-row-budget retry;
-    counts are TOTAL — even a corpus whose candidates exceed every cap
-    trial falls back to budget-sized pieces and counts exactly."""
+    """Dense-match workloads (every window a candidate) count exactly;
+    counts are TOTAL — a corpus whose candidates exceed the cap falls back
+    to budget-sized pieces and counts exactly."""
     ab = Alphabet.protein()
     text = np.zeros(4_096, np.uint8)
     pats = PatternSet(np.zeros((1, 32), np.uint8), ab)
     truth = 4_096 - 32 + 1
-    eng = make_fast(pats, backend="pallas", interpret=True)
-    assert eng.count(text) == truth        # retries with row_slots=128
-    tight = make_fast(pats, backend="pallas", interpret=True, cap=1024)
+    eng = make_fast(pats, backend="triton", interpret=True)
+    assert eng.count(text) == truth
+    tight = make_fast(pats, backend="triton", interpret=True, cap=1024)
     assert tight.count(text) == truth      # 4065 candidates > cap=1024:
     # piece fallback, never an undercount or a density-dependent error

@@ -1,16 +1,17 @@
-"""Per-engine Pallas fast paths (interpret mode) vs the numpy ground truth.
+"""Engines and their device scanner vs the numpy ground truth.
 
-Each engine's production path runs its own algorithm-derived filter stage
-(prefix/suffix bitmap, WM SHIFT, SOG shift-or) composed with the shared
-exact/fingerprint machinery — counts must equal the oracle and the jnp path.
+Each engine counts with its own scan; its pipelined counts, positions and
+matches run on one FastScanner over the same codes (ops/common.py:
+engine_scanner), here with the Triton kernel in interpret mode.  Every
+route must equal the oracle.
 """
 
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_engine
 
 CASES = [
     # sigma, m, engines (sog width == m)
@@ -28,13 +29,12 @@ def test_engine_fastpath_parity(sigma, m, engines):
     pats = datagen.generate_patterns(text, 50, m, ab, frac_present=0.6, seed=62)
     truth = datagen.count_matches(text, pats)
     for name in engines:
-        eng = make_engine(name, pats, interpret=True, tile=1 << 12)
-        assert eng.fast_path is not None
-        got = eng.count(text)           # dispatches to the pallas path
+        eng = make_engine(name, pats, backend="triton", interpret=True,
+                          tile=1 << 12)
+        got = eng.count(text)           # the engine's own scan
         assert got == truth, f"{name}: {got} != {truth}"
-        # jnp path agrees too
-        eng2 = make_engine(name, pats, fastpath=False, tile=1 << 12)
-        assert eng2.count(text) == truth, name
+        # the device scanner agrees too
+        assert eng.count_async(text).result() == truth, name
 
 
 def test_fastpath_core_traceable():
@@ -43,24 +43,24 @@ def test_fastpath_core_traceable():
     ab = Alphabet.dna()
     text = datagen.generate_text(20_000, ab, seed=63)
     pats = datagen.generate_patterns(text, 30, 8, ab, seed=64)
-    eng = make_engine("wm", pats, interpret=True)
-    c, o = jax.jit(eng.fast_path.core)(jnp.asarray(text))
+    from smatcher.ops.common import engine_scanner
+    eng = make_engine("wm", pats, backend="triton", interpret=True)
+    c, o = jax.jit(engine_scanner(eng).core)(jnp.asarray(text))
     assert int(o) == 0
     assert int(c) == datagen.count_matches(text, pats)
 
 
 def test_fastpath_overflow_total_count():
     """Engine counts are TOTAL: a dense-match corpus whose candidates
-    exceed the engine fast path's cap must still count exactly (the engine
-    falls back to its jnp scan), never raise or undercount."""
-    from tpu_smatcher.core.patterns import PatternSet
+    exceed the device scanner's cap must still count exactly, never raise
+    or undercount."""
+    from smatcher.core.patterns import PatternSet
     ab = Alphabet.protein()
     text = np.zeros(8_192, np.uint8)
     pats = PatternSet(np.zeros((1, 32), np.uint8), ab)
-    eng = make_engine("wm", pats, interpret=True)
-    eng.fast_path.cap = 256
-    eng.fast_path.caprows = 256
+    eng = make_engine("wm", pats, backend="triton", interpret=True, cap=256)
     assert eng.count(text) == 8_192 - 32 + 1
+    assert eng.count_async(text).result() == 8_192 - 32 + 1
 
 
 def test_byte_alphabet_and_long_patterns():
@@ -70,26 +70,26 @@ def test_byte_alphabet_and_long_patterns():
     pats = datagen.generate_patterns(text, 40, 16, ab, frac_present=0.6, seed=72)
     truth = datagen.count_matches(text, pats)
     for name in ("wm", "ac", "sog16"):
-        eng = make_engine(name, pats, interpret=True, tile=1 << 12)
+        eng = make_engine(name, pats, backend="triton", interpret=True, tile=1 << 12)
         assert eng.count(text) == truth, name
 
     ab2 = Alphabet.protein()
     text2 = datagen.generate_text(40_000, ab2, seed=73)
     pats2 = datagen.generate_patterns(text2, 30, 64, ab2, frac_present=0.6, seed=74)
     truth2 = datagen.count_matches(text2, pats2)
-    from tpu_smatcher.engines import make_fast
-    assert make_fast(pats2, backend="pallas", interpret=True).count(text2) == truth2
-    assert make_engine("sh", pats2, interpret=True, tile=1 << 12).count(text2) == truth2
+    from smatcher.engines import make_fast
+    assert make_fast(pats2, backend="triton", interpret=True).count(text2) == truth2
+    assert make_engine("sh", pats2, backend="triton", interpret=True, tile=1 << 12).count(text2) == truth2
 
 
 def test_engine_async_fp_tier_slots():
-    """The engine async path's fused slot kernel (fp tier) must count
-    exactly, and dense-match corpora must retry to the exact fallback."""
+    """The engine async path (fp tier, the Triton kernel) must count
+    exactly."""
     ab = Alphabet.protein()
     text = datagen.generate_text(60_000, ab, seed=81)
     pats = datagen.generate_patterns(text, 40, 32, ab, frac_present=0.6,
                                      seed=82)
     truth = datagen.count_matches(text, pats)
     for name in ("wm", "ac"):
-        eng = make_engine(name, pats, interpret=True)
+        eng = make_engine(name, pats, backend="triton", interpret=True)
         assert eng.scan_many([text]) == [truth], name

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.engines import make_distributed
-from tpu_smatcher.parallel import make_mesh
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.core.patterns import PatternSet
+from smatcher.engines import make_distributed
+from smatcher.parallel import make_mesh
 
 
 def make_case(sigma, m, p_size, n, seed):
@@ -43,7 +43,7 @@ def test_mesh_size_invariance(n_devices):
 
 
 def test_boundary_straddling_matches():
-    """Matches exactly straddling shard boundaries ride the ICI halo."""
+    """Matches exactly straddling shard boundaries ride the halo exchange."""
     ab = Alphabet.dna()
     m = 8
     n = 80_000
@@ -145,9 +145,9 @@ def test_sigma256_explicit_n_on_numpy_input():
     dc = make_distributed("wm", pats, mesh, tile=1 << 12)
     assert dc.count(padded, n=n_true) == expected
 
-    from tpu_smatcher.engines import make_fast
-    from tpu_smatcher.parallel.dist import DistributedPositions
-    dp = DistributedPositions(make_fast(pats, backend="pallas",
+    from smatcher.engines import make_fast
+    from smatcher.parallel.dist import DistributedPositions
+    dp = DistributedPositions(make_fast(pats, backend="triton",
                                         interpret=True), mesh)
     got = dp.positions(padded, n=n_true)
     want = np.nonzero(datagen.match_starts(text, pats))[0]
@@ -176,21 +176,20 @@ def test_distributed_total_on_match_dense_overflow():
     EXACTLY through the distributed retry ladder — no OverflowError (the
     reference's MPI_Reduce sums unconditionally at any density,
     main.c:656).  The raw flag stays observable via count_with_overflow."""
-    from tpu_smatcher.engines import make_fast
-    from tpu_smatcher.parallel.dist import DistributedCounter
+    from smatcher.engines import make_fast
+    from smatcher.parallel.dist import DistributedCounter
     ab = Alphabet.of_size(4)
     text = datagen.generate_text(160_000, ab, seed=31)
     pats = datagen.generate_patterns(text, 32, 16, ab, frac_present=0.5,
                                      seed=32)
-    # ~200 matches per 16K-position block: far past the per-block slot
-    # budget (overflow flag) yet only ~250 per shard (the dense per-shard
-    # rescan succeeds without the piece loop)
+    # ~250 matches per 20K-start shard: past a 128-candidate cap (the
+    # overflow flag), so the ladder splits each shard into pieces
     text = datagen.plant(text, pats.codes[0],
                          list(range(0, 160_000 - 16, 80)))
     expected = datagen.count_matches(text, pats)
-    assert expected > 1024          # dense enough to overflow cap=1024
+    assert expected > 8 * 128       # dense enough to overflow cap=128
     mesh = make_mesh(8)
-    fast = make_fast(pats, backend="pallas", interpret=True, cap=1024)
+    fast = make_fast(pats, backend="triton", interpret=True, cap=128)
     dc = DistributedCounter(fast.core, mesh, m=pats.m, sigma=pats.sigma,
                             fast=fast)
     c, o = dc.count_with_overflow(text)
@@ -205,14 +204,14 @@ def test_distributed_total_on_match_dense_overflow():
 def test_distributed_total_piece_fallback():
     """Density so extreme the dense shard pass also overflows: the piece
     loop (ladder step 2) must still produce the exact total."""
-    from tpu_smatcher.engines import make_fast
-    from tpu_smatcher.parallel.dist import DistributedCounter
+    from smatcher.engines import make_fast
+    from smatcher.parallel.dist import DistributedCounter
     ab = Alphabet.dna()
     pats = PatternSet(np.zeros((1, 16), np.uint8), ab)       # 'A'*16
     text = np.zeros(120_000, np.uint8)                       # all matches
     expected = 120_000 - 15
     mesh = make_mesh(8)
-    fast = make_fast(pats, backend="pallas", interpret=True, cap=1024)
+    fast = make_fast(pats, backend="triton", interpret=True, cap=1024)
     dc = DistributedCounter(fast.core, mesh, m=pats.m, sigma=pats.sigma,
                             fast=fast)
     assert dc.count(text) == expected

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_fast
+from smatcher.core.alphabet import Alphabet
+from smatcher.core import datagen
+from smatcher.engines import make_fast
 
 
 def _positions_oracle(text, pats):
@@ -17,7 +17,7 @@ def test_positions_exact_tier(sigma, m):
     ab = Alphabet.of_size(sigma)
     text = datagen.generate_text(60_000, ab, seed=31)
     pats = datagen.generate_patterns(text, 40, m, ab, frac_present=0.6, seed=32)
-    eng = make_fast(pats, backend="pallas", interpret=True, tile=1 << 12)
+    eng = make_fast(pats, backend="triton", interpret=True, tile=1 << 12)
     assert eng.ft.exact
     got = eng.positions(text)
     np.testing.assert_array_equal(got, _positions_oracle(text, pats))
@@ -28,7 +28,7 @@ def test_positions_fp_tier(sigma, m):
     ab = Alphabet.of_size(sigma)
     text = datagen.generate_text(60_000, ab, seed=33)
     pats = datagen.generate_patterns(text, 60, m, ab, frac_present=0.6, seed=34)
-    eng = make_fast(pats, backend="pallas", interpret=True, tile=1 << 12)
+    eng = make_fast(pats, backend="triton", interpret=True, tile=1 << 12)
     assert not eng.ft.exact
     got = eng.positions(text)
     np.testing.assert_array_equal(got, _positions_oracle(text, pats))
@@ -41,16 +41,16 @@ def test_positions_unbounded_dense():
     ab = Alphabet.dna()
     text = np.zeros(8_192, np.uint8)
     pats_codes = np.zeros((1, 8), np.uint8)
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.patterns import PatternSet
     pats = PatternSet(pats_codes, ab)
-    eng = make_fast(pats, backend="pallas", interpret=True, cap=256)
+    eng = make_fast(pats, backend="triton", interpret=True, cap=256)
     got = eng.positions(text)
     np.testing.assert_array_equal(got, np.arange(8_192 - 7, dtype=np.int64))
 
 
 @pytest.mark.parametrize("sigma,m", [(4, 8), (20, 32)])
 def test_positions_xla_backend(sigma, m):
-    """positions() works off-TPU on the portable XLA path (both tiers)."""
+    """positions() on the plain XLA path (both tiers)."""
     ab = Alphabet.of_size(sigma)
     text = datagen.generate_text(60_000, ab, seed=36)
     pats = datagen.generate_patterns(text, 50, m, ab, frac_present=0.6,
@@ -63,7 +63,7 @@ def test_positions_xla_backend(sigma, m):
 def test_positions_xla_dense_chunked():
     ab = Alphabet.of_size(2)
     text = np.zeros(20_000, np.uint8)
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.patterns import PatternSet
     pats = PatternSet(np.zeros((1, 12), np.uint8), ab)
     eng = make_fast(pats, backend="xla", cap=512)
     got = eng.positions(text, chunk=700)
@@ -74,45 +74,45 @@ def test_positions_short_text():
     ab = Alphabet.dna()
     pats = datagen.generate_patterns(
         datagen.generate_text(100, ab, seed=1), 4, 8, ab, seed=2)
-    eng = make_fast(pats, backend="pallas", interpret=True)
+    eng = make_fast(pats, backend="triton", interpret=True)
     assert eng.positions(np.zeros(3, np.uint8)).size == 0
 
 
 def test_engine_positions_via_fastpath():
-    from tpu_smatcher.engines import make_engine
+    from smatcher.engines import make_engine
     ab = Alphabet.dna()
     text = datagen.generate_text(40_000, ab, seed=35)
     pats = datagen.generate_patterns(text, 40, 8, ab, frac_present=0.6, seed=36)
     want = _positions_oracle(text, pats)
     for name in ("ac", "wm", "sog8"):
-        eng = make_engine(name, pats, interpret=True)
+        eng = make_engine(name, pats, backend="triton", interpret=True)
         np.testing.assert_array_equal(eng.positions(text), want)
 
 
 def test_engine_positions_fp_tier():
-    from tpu_smatcher.engines import make_engine
+    from smatcher.engines import make_engine
     ab = Alphabet.protein()
     text = datagen.generate_text(40_000, ab, seed=37)
     pats = datagen.generate_patterns(text, 40, 32, ab, frac_present=0.6, seed=38)
     want = _positions_oracle(text, pats)
     for name in ("sh", "wm"):
-        eng = make_engine(name, pats, interpret=True)
+        eng = make_engine(name, pats, backend="triton", interpret=True)
         np.testing.assert_array_equal(eng.positions(text), want)
 
 
 def test_engine_positions_unbounded_dense():
-    """EngineFastPath.positions past the device cap must fall through to
-    the shared split-on-overflow pipeline and enumerate EVERYTHING — the
-    reference engines' column loops are unbounded (cuda_wm.cu:136-176).
-    Regression: raised OverflowError instead.  Covers both tiers."""
-    from tpu_smatcher.core.patterns import PatternSet
-    from tpu_smatcher.engines import make_engine
+    """Engine positions past the device cap must go through the shared
+    split-on-overflow pipeline and enumerate EVERYTHING — the reference
+    engines' column loops are unbounded (cuda_wm.cu:136-176).  Covers both
+    tiers."""
+    from smatcher.core.patterns import PatternSet
+    from smatcher.engines import make_engine
     for sigma, m in ((4, 8), (20, 32)):           # exact tier / fp tier
         ab = Alphabet.of_size(sigma)
         text = np.zeros(6_000, np.uint8)          # every start matches
         pats = PatternSet(np.zeros((1, m), np.uint8), ab)
-        eng = make_engine("wm", pats, interpret=True)
-        eng.fast_path.cap = 512                   # far below the matches
+        eng = make_engine("wm", pats, backend="triton", interpret=True,
+                          cap=512)                # far below the matches
         got = eng.positions(text)
         np.testing.assert_array_equal(
             got, np.arange(6_000 - m + 1, dtype=np.int64))
@@ -138,8 +138,8 @@ def test_positions_file_streaming():
         eng = make_fast(pats, backend="xla")
         np.testing.assert_array_equal(eng.positions_file(path, chunk=13_000),
                                       want)
-        from tpu_smatcher.engines import make_engine
-        wm = make_engine("wm", pats, interpret=True, tile=1 << 12)
+        from smatcher.engines import make_engine
+        wm = make_engine("wm", pats, backend="triton", interpret=True, tile=1 << 12)
         np.testing.assert_array_equal(wm.positions_file(path, chunk=13_000),
                                       want)
     finally:
@@ -149,7 +149,7 @@ def test_positions_file_streaming():
 def test_matches_attribution():
     """matches() returns (positions, pattern_ids); smallest id on duplicate
     patterns; every id's pattern equals the window at its position."""
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.patterns import PatternSet
     ab = Alphabet.dna()
     text = datagen.generate_text(40_000, ab, seed=71)
     pats = datagen.generate_patterns(text, 30, 8, ab, frac_present=0.7,
@@ -166,8 +166,8 @@ def test_matches_attribution():
     assert ids.max() < 30                      # duplicate reports min id
     assert 123 in pos and ids[list(pos).index(123)] == 3
 
-    from tpu_smatcher.engines import make_engine
-    wm = make_engine("wm", pats, interpret=True)
+    from smatcher.engines import make_engine
+    wm = make_engine("wm", pats, backend="triton", interpret=True)
     pos2, ids2 = wm.matches(text)
     np.testing.assert_array_equal(pos2, pos)
     np.testing.assert_array_equal(ids2, ids)
@@ -179,33 +179,73 @@ def test_matches_attribution():
 
 def test_distributed_positions():
     """Per-shard compaction + global offsets equals the oracle positions."""
-    from tpu_smatcher.parallel import make_mesh
-    from tpu_smatcher.parallel.dist import DistributedPositions
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedPositions
     mesh = make_mesh(4)
-    # small corpora: interpret-mode Pallas per shard is slow, and straggling
-    # shards can trip XLA's collective-rendezvous timeout in CI
+    # small corpora: the interpreted kernel per shard is slow, and
+    # straggling shards can trip XLA's collective-rendezvous timeout in CI
     for sigma, m, n in [(4, 8, 12_005), (20, 32, 4_005)]:
         ab = Alphabet.of_size(sigma)
         text = datagen.generate_text(n, ab, seed=45)
         pats = datagen.generate_patterns(text, 30, m, ab, frac_present=0.6,
                                          seed=46)
-        fast = make_fast(pats, backend="pallas", interpret=True)
+        fast = make_fast(pats, backend="triton", interpret=True)
         dp = DistributedPositions(fast, mesh)
         np.testing.assert_array_equal(dp.positions(text),
                                       _positions_oracle(text, pats))
 
 
+@pytest.mark.parametrize("sigma,m,n", [(4, 8, 40_005), (20, 32, 40_005),
+                                       (256, 8, 20_003)])
+def test_distributed_positions_xla_eight_devices(sigma, m, n):
+    """DistributedPositions on the 8-device mesh with the plain XLA piece
+    scan (no interpreter anywhere): global positions == the oracle."""
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedPositions
+    ab = Alphabet.of_size(sigma)
+    text = datagen.generate_text(n, ab, seed=m + sigma)
+    pats = datagen.generate_patterns(text, 40, m, ab, frac_present=0.6,
+                                     seed=m + sigma + 1)
+    per = -(-n // 8)
+    text = datagen.plant(text, pats.codes[0], [per - m // 2, n - m])
+    dp = DistributedPositions(make_fast(pats, backend="xla"), make_mesh(8))
+    np.testing.assert_array_equal(dp.positions(text),
+                                  _positions_oracle(text, pats))
+
+
+def test_engine_matches_device_route_xla():
+    """Engine positions/matches/per-pattern counts go through the engine's
+    device scanner (a FastScanner over its codes) on the XLA backend too,
+    and agree with the fast engine."""
+    from smatcher.engines import make_engine
+    from smatcher.ops.common import engine_scanner
+    from smatcher.ops.fast import FastScanner
+    ab = Alphabet.of_size(20)
+    text = datagen.generate_text(30_000, ab, seed=93)
+    pats = datagen.generate_patterns(text, 30, 12, ab, frac_present=0.7,
+                                     seed=94)
+    want_pos, want_ids = make_fast(pats, backend="xla").matches(text)
+    for name in ("ac", "sbom", "sh"):
+        eng = make_engine(name, pats, backend="xla")
+        pos, ids = eng.matches(text)
+        assert isinstance(engine_scanner(eng), FastScanner)
+        np.testing.assert_array_equal(pos, want_pos)
+        np.testing.assert_array_equal(ids, want_ids)
+        np.testing.assert_array_equal(eng.positions(text), want_pos)
+        assert eng.count_per_pattern(text).sum() == len(want_pos)
+
+
 def test_distributed_positions_unbounded_dense():
     """Dense matches exceed the per-device cap: pieces must split and the
     full match set still streams out (no global cap)."""
-    from tpu_smatcher.core.patterns import PatternSet
-    from tpu_smatcher.parallel import make_mesh
-    from tpu_smatcher.parallel.dist import DistributedPositions
+    from smatcher.core.patterns import PatternSet
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedPositions
     mesh = make_mesh(4)
     ab = Alphabet.dna()
     text = np.zeros(8_192, np.uint8)
     pats = PatternSet(np.zeros((1, 8), np.uint8), ab)
-    fast = make_fast(pats, backend="pallas", interpret=True, cap=256)
+    fast = make_fast(pats, backend="triton", interpret=True, cap=256)
     dp = DistributedPositions(fast, mesh)
     got = dp.positions(text)
     np.testing.assert_array_equal(got, np.arange(8_192 - 7, dtype=np.int64))
@@ -215,9 +255,9 @@ def test_distributed_positions_sigma256_wrap():
     """Byte alphabet: wrap/pad junk positions (global start >= n-m+1) are
     filtered; true positions — including one at the last valid start —
     survive."""
-    from tpu_smatcher.core.patterns import PatternSet
-    from tpu_smatcher.parallel import make_mesh
-    from tpu_smatcher.parallel.dist import DistributedPositions
+    from smatcher.core.patterns import PatternSet
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedPositions
     mesh = make_mesh(4)
     sigma, m, n = 256, 8, 4_003           # uneven: exercises the 0-pad too
     ab = Alphabet.of_size(sigma)
@@ -225,7 +265,7 @@ def test_distributed_positions_sigma256_wrap():
     pats = datagen.generate_patterns(text, 20, m, ab, frac_present=0.6,
                                      seed=50)
     text = datagen.plant(text, pats.codes[0], [n - m])
-    fast = make_fast(pats, backend="pallas", interpret=True)
+    fast = make_fast(pats, backend="triton", interpret=True)
     dp = DistributedPositions(fast, mesh)
     got = dp.positions(text)
     np.testing.assert_array_equal(got, _positions_oracle(text, pats))
@@ -233,14 +273,14 @@ def test_distributed_positions_sigma256_wrap():
 
 
 def test_distributed_positions_chunked():
-    from tpu_smatcher.parallel import make_mesh
-    from tpu_smatcher.parallel.dist import DistributedPositions
+    from smatcher.parallel import make_mesh
+    from smatcher.parallel.dist import DistributedPositions
     mesh = make_mesh(4)
     ab = Alphabet.of_size(4)
     text = datagen.generate_text(12_005, ab, seed=47)
     pats = datagen.generate_patterns(text, 30, 8, ab, frac_present=0.6,
                                      seed=48)
-    fast = make_fast(pats, backend="pallas", interpret=True, cap=1024)
+    fast = make_fast(pats, backend="triton", interpret=True, cap=1024)
     dp = DistributedPositions(fast, mesh)
     np.testing.assert_array_equal(dp.positions(text, chunk=700),
                                   _positions_oracle(text, pats))
@@ -250,7 +290,7 @@ def test_count_per_pattern():
     """count_per_pattern() is the matches() histogram: sums to count(),
     equals a brute-force per-pattern occurrence count (duplicates credited
     to the smallest id), and works on engines and mixed sets."""
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.patterns import PatternSet
     ab = Alphabet.dna()
     text = datagen.generate_text(40_000, ab, seed=81)
     pats = datagen.generate_patterns(text, 25, 8, ab, frac_present=0.7,
@@ -264,14 +304,14 @@ def test_count_per_pattern():
     for i, pat in enumerate(pats.codes):
         assert per[i] == int((win == pat).all(axis=1).sum())
 
-    from tpu_smatcher.engines import make_engine
-    wm = make_engine("wm", pats, interpret=True)
+    from smatcher.engines import make_engine
+    wm = make_engine("wm", pats, backend="triton", interpret=True)
     np.testing.assert_array_equal(wm.count_per_pattern(text), per)
 
 
 def test_count_per_pattern_mixed():
-    from tpu_smatcher.core.patterns import MixedPatternSet
-    from tpu_smatcher.engines import make_mixed
+    from smatcher.core.patterns import MixedPatternSet
+    from smatcher.engines import make_mixed
     ab = Alphabet.dna()
     text = datagen.generate_text(30_000, ab, seed=83)
     rng = np.random.default_rng(84)
@@ -312,7 +352,7 @@ def test_count_per_pattern_dense_wid_histogram():
     # duplicate a pattern: credit must go to the smallest original id
     codes = np.array(pats.codes)
     codes[37] = codes[11]
-    from tpu_smatcher.core.patterns import PatternSet
+    from smatcher.core.patterns import PatternSet
     pats = PatternSet(codes, ab)
     truth = datagen.count_matches(text, pats)
     dense = make_fast(pats, backend="xla", tile=1 << 13, cap=256)

@@ -4,12 +4,12 @@ so jnp tile paths mask by position and distribution rejects it cleanly."""
 import numpy as np
 import pytest
 
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
-from tpu_smatcher.core import datagen
-from tpu_smatcher.engines import make_engine, make_fast
-from tpu_smatcher.parallel import make_mesh, shard_text
-from tpu_smatcher.parallel.dist import DistributedCounter
+from smatcher.core.alphabet import Alphabet
+from smatcher.core.patterns import PatternSet
+from smatcher.core import datagen
+from smatcher.engines import make_engine, make_fast
+from smatcher.parallel import make_mesh, shard_text
+from smatcher.parallel.dist import DistributedCounter
 
 
 def _case():
@@ -24,7 +24,7 @@ def _case():
 def test_single_device_jnp_engines_no_pad_wrap():
     text, pats = _case()
     for name in ("wm", "sh", "sbom", "sog8", "ac"):
-        eng = make_engine(name, pats, fastpath=False, tile=1 << 8)
+        eng = make_engine(name, pats, tile=1 << 8)
         assert eng.count(text) == 0, name
 
 
@@ -36,7 +36,7 @@ def test_jnp_ac_byte_alphabet_positional_mask():
     # all-255 pattern: the pad value itself — fake finals on padded tails
     # would overcount without the positional mask
     pats = PatternSet(np.full((1, 8), 255, np.uint8), ab)
-    eng = make_engine("ac", pats, fastpath=False, lanes=64)
+    eng = make_engine("ac", pats, lanes=64)
     assert eng.count(text) == 1001 - 7
     assert int(eng.match_ends(text).sum()) == 1001 - 7
 
@@ -44,11 +44,11 @@ def test_jnp_ac_byte_alphabet_positional_mask():
     pats2 = datagen.generate_patterns(text2, 30, 8, ab, frac_present=0.6,
                                       seed=92)
     truth = datagen.count_matches(text2, pats2)
-    eng2 = make_engine("ac", pats2, fastpath=False, lanes=64)
+    eng2 = make_engine("ac", pats2, lanes=64)
     assert eng2.count(text2) == truth
 
     # q>1 composed tables still need the sentinel — documented raise
-    eng3 = make_engine("ac", pats2, fastpath=False, lanes=64, q=2)
+    eng3 = make_engine("ac", pats2, lanes=64, q=2)
     with pytest.raises(ValueError):
         eng3.count(text2)
 
@@ -59,7 +59,7 @@ def test_single_device_counts_real_matches():
     pats = datagen.generate_patterns(text, 30, 8, ab, frac_present=0.6, seed=92)
     truth = datagen.count_matches(text, pats)
     for name in ("wm", "sh"):
-        eng = make_engine(name, pats, fastpath=False, tile=1 << 10)
+        eng = make_engine(name, pats, tile=1 << 10)
         assert eng.count(text) == truth, name
     assert make_fast(pats, backend="xla", tile=1 << 10).count(text) == truth
 

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_smatcher.utils import PhaseTimer, time_jit, emit_jsonl, dprint
+from smatcher.utils import PhaseTimer, time_jit, emit_jsonl, dprint
 
 
 def test_phase_timer_accumulates():
@@ -71,7 +71,7 @@ def test_dprint_in_pallas_interpret(capfd):
             in_specs=[pl.BlockSpec((8, 128), lambda i: (0, 0))],
             out_specs=pl.BlockSpec((8, 128), lambda i: (0, 0)),
             out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
-            interpret=True)(jnp.ones((8, 128), jnp.int32))
+            backend="triton", interpret=True)(jnp.ones((8, 128), jnp.int32))
     finally:
         pl.debug_print = orig
     assert int(out.sum()) == 3 * 8 * 128
@@ -81,13 +81,43 @@ def test_dprint_in_pallas_interpret(capfd):
 
 
 def test_top_level_scan():
-    import tpu_smatcher as ts
-    from tpu_smatcher.core import datagen
+    import smatcher as ts
+    from smatcher.core import datagen
     ab = ts.Alphabet.dna()
     text = datagen.generate_text(30_000, ab, seed=71)
     pats = datagen.generate_patterns(text, 30, 8, ab, seed=72)
     r = ts.scan(text, pats, engine="fast", backend="xla", tile=1 << 12)
     assert r["matches"] == datagen.count_matches(text, pats)
     assert r["bytes"] == 30_000 and r["bytes_per_s"] > 0
-    r2 = ts.scan(text, pats, engine="wm", fastpath=False, tile=1 << 12)
+    r2 = ts.scan(text, pats, engine="wm", tile=1 << 12)
     assert r2["matches"] == r["matches"]
+
+
+def test_compile_cache_uses_env_dir(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: the helper returns it and configures
+    nothing else (JAX reads the variable itself)."""
+    import jax
+    from smatcher.utils.cache import enable_compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    """Unset: the cache is .jax_cache/ at the checkout root, which
+    .gitignore lists."""
+    import os
+    import jax
+    from smatcher.utils import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = cache.enable_compile_cache()
+        assert path == os.path.join(cache.ROOT, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+        assert os.path.exists(os.path.join(cache.ROOT, "smatcher"))
+        with open(os.path.join(cache.ROOT, ".gitignore")) as fh:
+            assert ".jax_cache/" in fh.read().split()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
